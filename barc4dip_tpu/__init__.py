@@ -1,5 +1,5 @@
 # SPDX-License-Identifier: CECILL-2.1
-"""barc4dip_tpu — TPU-native digital image processing for beam diagnostics.
+"""barc4dip_tpu — accelerator-native (JAX) digital image processing for beam diagnostics.
 
 A ground-up JAX/XLA rebuild of the barc4dip capability set: speckle and
 sharpness metrics for 2D detector images and (T, H, W) stacks, FFT/PSD and

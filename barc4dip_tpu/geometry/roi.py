@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: CECILL-2.1
 """ROI slice construction (host-side shape logic).
 
-In the TPU-native design these helpers run on the host at trace time: ROI
+In the device design these helpers run on the host at trace time: ROI
 slices, 3x3 grids and embedding offsets are compile-time constants that
 parameterise statically-shaped device programs.
 

@@ -18,7 +18,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..geometry.masks import square_embed_slices
-from ..ops import mxufft
 from ..ops.corrcore import autocorr2d_core
 from ..ops.fftcore import psd2d_core
 from ..ops.momentscore import distribution_moments_core
@@ -149,14 +148,11 @@ def grain_core(
     fraction: float = _INV_E,
     radial_method: str = "interpolated",
     with_map: bool = True,
-    half_map: bool = False,
 ) -> dict:
     """Speckle grain metrics from the autocorrelation peak.
 
     ``with_map=False`` drops the (N, N) autocorr map and lag axes (tile
-    mode). ``half_map=True`` emits only rows 0..N//2 under key
-    "autocorr_half" — the map is exactly centro-symmetric, so the host
-    rebuilds the rest (ops/symmetry.py) for half the transfer bytes.
+    mode).
     """
     lx, ly, leq, ac, N = _autocorr_widths(
         img, fraction=fraction, standardize=False, radial_method=radial_method
@@ -166,16 +162,13 @@ def grain_core(
     out = {"lx": lx, "ly": ly, "leq": leq, "r": r_aniso}
     if with_map:
         lag = jnp.asarray(lag_axis_from_step(N, 1.0), dtype=ac.dtype)
-        if half_map:
-            out["autocorr_half"] = ac[: int(N) // 2 + 1, :]
-        else:
-            out["autocorr"] = ac
+        out["autocorr"] = ac
         out["xlag"] = lag
         out["ylag"] = lag
     return out
 
 
-def grain_map_core(img, *, half_map: bool = False):
+def grain_map_core(img):
     """Just the peak-normalized autocorrelation map of ``grain_core`` (no
     width scalars) — the re-derivation target for lazy map leaves: scalars
     ship with the fused stack program, the (N, N) map only ever computes
@@ -184,8 +177,7 @@ def grain_map_core(img, *, half_map: bool = False):
     ac = autocorr2d_core(
         data, remove_mean=True, standardize=False, normalize="peak"
     )
-    N = ac.shape[-1]
-    return ac[: int(N) // 2 + 1, :] if half_map else ac
+    return ac
 
 
 def inverse_autocorr_width_core(
@@ -223,47 +215,20 @@ def bandwidth_core(img) -> dict:
     mu = jnp.nanmean(data)
     data = data - mu
 
-    N = int(data.shape[-1])
-    if mxufft.mxu_fft_enabled() and mxufft.perm_supported_2d(data.shape):
-        # Permuted-order MXU path (ops/mxufft.py): every bandwidth statistic
-        # is a reduction over functions of the integer frequency index, and
-        # the index of any permuted position is computable from iota — so
-        # the PSD never needs the Hermitian mirror, the fftshift pass, or a
-        # materialized complex spectrum.
-        fre, fim = mxufft.fftp2(data)
-        P = (fre * fre + fim * fim) * (1.0 / float(N * N))
-        return _bandwidth_from_psd(P, permuted=True)
     P = psd2d_core(data, step_x=1.0, step_y=1.0, scale=True)
     return _bandwidth_from_psd(P)
 
 
-def _perm_signed_index(N: int, axis: int):
-    """Signed (fftfreq-order) integer frequency index of every position of a
-    PERMUTED-order axis of length N (see ops/mxufft.py: flat position
-    p = k1*128 + k2 holds natural frequency k = k1 + (N/128)*k2)."""
-    pos = jax.lax.broadcasted_iota(jnp.int32, (N, N), axis)
-    k = (pos // 128) + (N // 128) * (pos % 128)
-    return ((k + N // 2) % N) - (N // 2)
-
-
-def _bandwidth_from_psd(P, *, permuted: bool = False) -> dict:
-    """The bandwidth metric body, given the scaled PSD of the mean-removed
-    padded image (shared by the fused grain+bandwidth core) — fftshifted
-    natural order by default, ops/mxufft.py permuted order when
-    ``permuted=True`` (identical statistics; only the index fields and the
-    DC position change)."""
+def _bandwidth_from_psd(P) -> dict:
+    """The bandwidth metric body, given the scaled, fftshifted PSD of the
+    mean-removed padded image (shared by the fused grain+bandwidth core)."""
     N = int(P.shape[-1])
     P = jnp.nan_to_num(P, nan=0.0, posinf=0.0, neginf=0.0)
 
     dt = P.dtype
-    if permuted:
-        P = P.at[0, 0].set(0.0)  # natural k=(0,0) sits at permuted (0,0)
-        ixi = _perm_signed_index(N, 1)
-        iyi = _perm_signed_index(N, 0)
-    else:
-        P = P.at[N // 2, N // 2].set(0.0)
-        ixi = jax.lax.broadcasted_iota(jnp.int32, (N, N), 1) - (N // 2)
-        iyi = jax.lax.broadcasted_iota(jnp.int32, (N, N), 0) - (N // 2)
+    P = P.at[N // 2, N // 2].set(0.0)
+    ixi = jax.lax.broadcasted_iota(jnp.int32, (N, N), 1) - (N // 2)
+    iyi = jax.lax.broadcasted_iota(jnp.int32, (N, N), 0) - (N // 2)
 
     # shifted fftfreq values: signed index / N
     FX = ixi.astype(dt) / N
@@ -289,10 +254,8 @@ def _bandwidth_from_psd(P, *, permuted: bool = False) -> dict:
     # (i - N//2)/N with integer i, so FR groups exactly by the integer
     # s = ix^2 + iy^2, and the crossing radius is the smallest class
     # radius whose inclusive CDF reaches 0.95. Found by BISECTION on s —
-    # ~21 fused masked reductions — instead of a segment-sum histogram:
-    # a (N/2)^2-segment scatter costs ~30 ms/frame at 2048^2 on TPU
-    # (scatter-hostile hardware), the bisection ~1 ms for the same exact
-    # integer-class semantics.
+    # ~21 fused masked reductions — instead of a (N/2)^2-segment
+    # scatter histogram, with the same exact integer-class semantics.
     s_flat = (ixi * ixi + iyi * iyi).reshape(-1)
     smax = (N // 2) ** 2  # FR <= f_max  <=>  s <= (N//2)^2 exactly
     target = jnp.asarray(0.95, dt) * tsafe
@@ -377,18 +340,10 @@ def spectral_entropy_core(
     if remove_mean:
         x = x - jnp.mean(x)
 
-    if mxufft.mxu_fft_enabled() and mxufft.perm_supported_2d(x.shape) and not jnp.iscomplexobj(x):
-        # entropy is order-agnostic: permuted-order MXU PSD, DC at (0, 0)
-        fre, fim = mxufft.fftp2(x)
-        P = fre * fre + fim * fim
-        ny, nx = P.shape[-2], P.shape[-1]
-        if remove_dc:
-            P = P.at[0, 0].set(0.0)
-    else:
-        P = psd2d_core(x, step_x=1.0, step_y=1.0, scale=False)
-        ny, nx = P.shape[-2], P.shape[-1]
-        if remove_dc:
-            P = P.at[ny // 2, nx // 2].set(0.0)
+    P = psd2d_core(x, step_x=1.0, step_y=1.0, scale=False)
+    ny, nx = P.shape[-2], P.shape[-1]
+    if remove_dc:
+        P = P.at[ny // 2, nx // 2].set(0.0)
 
     s = jnp.sum(P)
     ssafe = jnp.where(s > 0, s, 1.0)
@@ -407,10 +362,11 @@ def eigenvalues_core(
 ) -> dict:
     """(STA2) Sum of the top-k eigenvalues of the image covariance.
 
-    TPU-native route: instead of LAPACK SVD (reference
-    metrics/sharpness.py:839), form the (M, M) Gram matrix J J^T on the MXU
-    and take eigvalsh — the eigenvalues are exactly the squared singular
-    values, and symmetric eigendecomposition maps far better onto TPU.
+    Device route: instead of LAPACK SVD (reference
+    metrics/sharpness.py:839), form the (M, M) Gram matrix J J^T with one
+    full-fp32 matmul (``precision="highest"``: TF32 would cost the value
+    gates) and take eigvalsh — the eigenvalues are exactly the squared
+    singular values.
 
     ``eig_method``: "auto" (subspace iteration above 1024 px, exact dense
     below — the default), "dense" (always exact), or "subspace" (always
@@ -441,11 +397,10 @@ def eigenvalues_core(
         or (eig_method == "auto" and n_eig >= 1024 and k_want <= 32)
     )
     if use_subspace:
-        # Large frames: dense eigvalsh computes the full spectrum with QR
-        # sweeps the MXU hates (~200 ms at 2048^2); blocked subspace
-        # iteration gets the same top-k to ~1e-6 rel in ~27 ms (measured on
-        # hardware — see ops/eig.py, incl. the flat-spectrum caveat).
-        # Small frames/tiles keep the exact dense path.
+        # Large frames: dense eigvalsh computes the full spectrum; blocked
+        # subspace iteration gets the same top-k to ~1e-6 rel with a few
+        # matmuls (see ops/eig.py, incl. the flat-spectrum caveat). Small
+        # frames/tiles keep the exact dense path.
         from ..ops.eig import topk_eigvalsh_subspace
 
         ev = topk_eigvalsh_subspace(G, k_want) / denom

@@ -309,7 +309,7 @@ def eigenvalues(
 ) -> dict:
     """(STA2) Sum of the top-k covariance eigenvalues (plus e1, e2, e1/e2).
 
-    ``eig_method``: "auto" (default; MXU subspace iteration above 1024 px),
+    ``eig_method``: "auto" (default; subspace iteration above 1024 px),
     "dense" (always-exact eigvalsh) or "subspace" — see
     :func:`barc4dip_tpu.ops.eig.topk_eigvalsh_subspace` for the accuracy
     trade-off on flat (noise-only) spectra.

@@ -5,7 +5,7 @@ Parity with reference metrics/speckles.py:83-817: same groups (amplitude,
 grain, bandwidth, stats), same meta/full/tiles schema, same units tables,
 same tiling policy, same stack + tracking pipeline.
 
-TPU-native execution model: one jitted program per (shape, dtype, groups,
+Device execution model: one jitted program per (shape, dtype, groups,
 tile mode) computes every full-frame metric AND every tile metric — the
 reference's up-to-324 sequential estimator invocations per image
 (metrics/speckles.py:201-250 via common.py:363-371) become a handful of
@@ -25,7 +25,6 @@ import numpy as np
 
 from ..config import MIN_TILE_PX
 from ..geometry.roi import odd_size, roi_grid_3x3
-from ..ops import mxufft
 from ..utils import elapsed_time, now
 from .common import (
     chunk_layout_signature,
@@ -125,18 +124,11 @@ def _speckle_program(
 
 def _assemble_stack_output(raw: dict, mode: str) -> tuple[dict, dict | None]:
     """Convert a stacked raw pytree into the reference (full, tiles) schema."""
-    from ..ops.symmetry import mirror_centrosymmetric
-
     full_raw = raw["full"]
     out_full: dict = {}
     for g in ("amplitude", "grain", "stats", "bandwidth"):
         if g in full_raw:
             out_full[g] = {k: np.asarray(v) for k, v in full_raw[g].items()}
-    if "grain" in out_full and "autocorr_half" in out_full["grain"]:
-        N = int(out_full["grain"]["xlag"].shape[-1])
-        out_full["grain"]["autocorr"] = mirror_centrosymmetric(
-            out_full["grain"].pop("autocorr_half"), N
-        )
 
     out_tiles = None
     if mode != "off" and "tiles" in raw:
@@ -156,10 +148,10 @@ def _assemble_stack_output(raw: dict, mode: str) -> tuple[dict, dict | None]:
 
 
 @lru_cache(maxsize=32)
-def _grain_map_program(flip: bool, half: bool):
-    """jitted: raw frame (H, W, any dtype) -> peak-normalized autocorr map
-    (half rows when ``half``), with the display-origin flip applied on
-    device exactly as the fused stack program does."""
+def _grain_map_program(flip: bool):
+    """jitted: raw frame (H, W, any dtype) -> peak-normalized autocorr map,
+    with the display-origin flip applied on device exactly as the fused
+    stack program does."""
     from .estimators import grain_map_core
 
     def fn(img):
@@ -167,7 +159,7 @@ def _grain_map_program(flip: bool, half: bool):
             img = img.astype(jnp.float32)
         if flip:
             img = img[::-1, :]
-        return grain_map_core(img, half_map=half)
+        return grain_map_core(img)
 
     return jax.jit(fn)
 
@@ -177,13 +169,10 @@ def _attach_lazy_grain_maps(
 ) -> None:
     """Attach the per-frame autocorr map / lag-axis leaves to a stack grain
     block as lazy views: frame ``t``'s map is re-derived on device from
-    ``stack[t]`` (and only its redundant-free half pulled) the first time a
-    consumer indexes it. Keeps the reference contract (map keys present,
+    ``stack[t]`` the first time a consumer indexes it. Keeps the reference contract (map keys present,
     reference metrics/speckles.py:474-476) without the hot loop paying
     ~N^2 floats/frame of downlink."""
-    from ..config import on_tpu
     from ..geometry.masks import square_embed_slices
-    from ..ops.symmetry import mirror_centrosymmetric
     from ..utils.lazy import LazyMapStack
 
     from ..signal.common import lag_axis_from_step
@@ -193,13 +182,11 @@ def _attach_lazy_grain_maps(
     compute_dtype = np.dtype(
         jnp.result_type(np.float64 if stack.dtype == np.float64 else np.float32)
     )
-    half = on_tpu()
-    program = _grain_map_program(bool(flip), half)
+    program = _grain_map_program(bool(flip))
 
     def fetch(t: int) -> np.ndarray:
         frame = np.ascontiguousarray(stack[int(t)])
-        out = np.asarray(program(jnp.asarray(frame)))
-        return mirror_centrosymmetric(out, N) if half else out
+        return np.asarray(program(jnp.asarray(frame)))
 
     lag = lag_axis_from_step(N, 1.0).astype(compute_dtype)
     grain_out["autocorr"] = LazyMapStack(T, (N, N), compute_dtype, fetch)
@@ -245,12 +232,7 @@ def amplitude(image, verbose: bool = False) -> dict:
 
 
 @lru_cache(maxsize=32)
-def _grain_jit(
-    fraction: float, radial_method: str, with_map: bool, _mxu: bool = False
-):
-    # _mxu keys the cache on the MXU-FFT knob/device state: the same
-    # wrapper runs both on the accelerator and under the host's
-    # jax.default_device(cpu) sizing path, and the traced branch differs.
+def _grain_jit(fraction: float, radial_method: str, with_map: bool):
     return jax.jit(
         lambda img: grain_core(
             img, fraction=fraction, radial_method=radial_method, with_map=with_map
@@ -275,9 +257,9 @@ def grain(
     if radial_method not in ("binned", "interpolated"):
         raise ValueError("radial_method must be 'binned' or 'interpolated'.")
 
-    out = _grain_jit(
-        float(fraction), str(radial_method), True, mxufft.mxu_fft_enabled()
-    )(_device_float(data))
+    out = _grain_jit(float(fraction), str(radial_method), True)(
+        _device_float(data)
+    )
     metrics = {
         "lx": float(out["lx"]),
         "ly": float(out["ly"]),
@@ -389,9 +371,6 @@ def speckle_stats(
 
     mode, tile_shape_px = choose_tiling_mode(h, w, tiles=tiles, min_tile_px=MIN_TILE_PX)
 
-    from ..config import on_tpu
-    from ..ops.symmetry import mirror_centrosymmetric
-
     program = _speckle_program(
         tuple(sorted(groups)),
         mode,
@@ -438,19 +417,18 @@ def speckle_stats(
 
         # Lazy map leaf that pins NOTHING on the device: first access
         # re-derives the autocorrelation from the caller's raw image
-        # (display flip applied on device), pulling only the
-        # redundancy-free half. Upload rides the content-addressed cache,
-        # so it is free when the frame's buffer is still live.
-        def _fetch_map(img=image, half=on_tpu(), n=N, flip=flip):
+        # (display flip applied on device). Upload rides the
+        # content-addressed cache, so it is free when the frame's buffer
+        # is still live.
+        def _fetch_map(img=image, flip=flip):
             from ..ops.uploadcache import device_resident
 
-            prog = _grain_map_program(flip, half)
-            arr = np.asarray(
+            prog = _grain_map_program(flip)
+            return np.asarray(
                 prog(img if isinstance(img, jax.Array)
                      else device_resident(np.ascontiguousarray(img))),
                 dtype=np.float64,
             )
-            return mirror_centrosymmetric(arr, n) if half else arr
 
         lag = lag_axis_from_step(N, 1.0)
         out["full"]["grain"] = {
@@ -522,17 +500,14 @@ def tracking_grid_from_frame0(
     chunk program needs the ROI geometry up front. The map-free grain
     program returns just the four scalars — no (N, N) autocorr download
     for a geometry decision — and runs on the host CPU backend: frame 0
-    is host-resident anyway, the result only sizes static shapes, and a
-    one-frame sizing pass does not justify a dedicated accelerator
-    executable (~50 s first-execution penalty per process on the hosted
-    backend; measured identical lx/ly/leq).
+    is host-resident anyway, and the result only sizes static shapes, so
+    a one-frame sizing pass does not justify compiling a dedicated
+    accelerator executable.
     """
     T, H, W = (int(s) for s in stack.shape)
     frame0 = np.asarray(stack[0, :, :])
     with jax.default_device(jax.devices("cpu")[0]):
-        g0 = _grain_jit(
-            float(1.0 / np.e), "interpolated", False, mxufft.mxu_fft_enabled()
-        )(
+        g0 = _grain_jit(float(1.0 / np.e), "interpolated", False)(
             jnp.asarray(frame0, dtype=jnp.promote_types(frame0.dtype, jnp.float32))
         )
         grain0 = {k: float(g0[k]) for k in ("lx", "ly", "leq", "r")}
@@ -576,7 +551,7 @@ def speckle_stack_stats(
     """Per-frame speckle metrics stacked over time plus abs/inc translation
     tracking from a central 3x3 ROI grid.
 
-    ``parallel``/``n_jobs`` are accepted for API parity; on TPU the frame
+    ``parallel``/``n_jobs`` are accepted for API parity; on the device the frame
     axis is batched on-device in chunks of ``frame_chunk`` frames (the
     device-native analogue of the reference's joblib thread pool,
     metrics/speckles.py:296-325). Metrics and tracking run as ONE fused

@@ -6,15 +6,13 @@ correlation ``ifft(Fa * conj(Fb))`` with optional mean removal /
 standardisation, fftshifted so zero lag sits at the center, and optional
 peak normalisation.
 
-TPU-native departure: for real inputs we go through rfft2/irfft2 — half the
+Departure from the reference: for real inputs we go through rfft2/irfft2 — half the
 FFT work and an *exactly* real result, which supersedes the reference's
 ``real_if_close`` + imaginary-residual runtime check (signal/corr.py:309-319).
 """
 from __future__ import annotations
 
 import jax.numpy as jnp
-
-from . import mxufft
 
 __all__ = ["xcorr1d_core", "xcorr2d_core", "autocorr2d_core"]
 
@@ -72,23 +70,8 @@ def autocorr2d_core(a, *, remove_mean=True, standardize=False, normalize="peak")
     """
     a = _precondition(a, remove_mean, standardize)
     shape = a.shape[-2:]
-    if mxufft.mxu_fft_enabled() and mxufft.perm_supported_2d(shape):
-        # power spectrum is order-agnostic (pointwise); the permuted-order
-        # matmul DFT (ops/mxufft.py) keeps the whole round trip on the MXU
-        # with zero transposes. F*conj(F) through the fused Pallas kernel
-        # (ops/pallas_fftp.py) where the backend supports it — the product
-        # is exactly |F|^2 with a zero imaginary plane.
-        from . import pallas_fftp
-
-        fre, fim = mxufft.fftp2(a)
-        if a.ndim == 2:
-            corr = pallas_fftp.corr_from_spectra(fre, fim, fre, fim)
-        else:
-            # explicit leading batch dims: einsum inverse handles any rank
-            corr = mxufft.ifftp2_real(fre * fre + fim * fim, None)
-    else:
-        F = jnp.fft.rfft2(a)
-        P = jnp.real(F) ** 2 + jnp.imag(F) ** 2
-        corr = jnp.fft.irfft2(P, s=shape)
+    F = jnp.fft.rfft2(a)
+    P = jnp.real(F) ** 2 + jnp.imag(F) ** 2
+    corr = jnp.fft.irfft2(P, s=shape)
     corr = jnp.fft.fftshift(corr, axes=(-2, -1))
     return _finalize(corr, normalize)

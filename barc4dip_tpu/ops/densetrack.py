@@ -8,27 +8,14 @@ sub-aperture on a regular grid — which then integrates into a wavefront.
 This module is the device kernel: thousands of windowed zero-normalised
 cross-correlations in ONE jitted program.
 
-TPU-native shape: both full images upload once and everything below is one
-jitted program per grid geometry. Three interchangeable correlation cores
-(same NCC field to float tolerance; measured at 2048², 33-px tiles, r=10):
+Device shape: both full images upload once and everything below is one
+jitted program per grid geometry. Two interchangeable correlation cores
+(same NCC field to float tolerance):
 
-- ``pallas`` (TPU default): node-last layout — the grid node rides the
-  LANE axis, so one 128-node slab's tiles+windows live in VMEM and every
-  window byte is read once per offset from VMEM. The layout is built by a
-  single ``conv_general_dilated_patches`` op (~0.3 s at 62k nodes; a fancy
-  gather or transpose both cost ~3 s — measured), and peaks come from a
-  node-last vectorised argmax+Newton (no big transpose anywhere). 72k
-  corr/s at 249k nodes; the compute kernel alone runs ~570k corr/s.
-- ``conv``: grouped MXU correlation, one filter per node (~11k corr/s —
-  the grouped-conv lowering re-reads HBM per offset).
-- ``fft``: batched small rfft2 (~10k corr/s on TPU — odd ~53-px FFTs
-  underutilise the vector units — but the fastest lowering on CPU, where
-  grouped conv degenerates to a per-group loop).
-
-Dead ends (measured, do not retry): in-kernel strided-slice deinterleave
-(Mosaic rejects stride>1 vector slices), per-node HBM->VMEM DMAs into
-lane slots (Mosaic internal error on lane-sliced dst), XLA fancy-gather /
-moveaxis preps (~3 s — gathers with lane-varying indices are slow).
+- ``fft`` (default): batched small rfft2/irfft2 over all grid nodes —
+  the faster core on the GPU (cuFFT) and on the CPU;
+- ``conv``: one grouped correlation, one filter per node, at full fp32
+  (``precision=HIGHEST``; TF32 would cost the NCC ~3 digits).
 
 Both images are globally z-scored first: NCC is affine-invariant, and raw
 detector counts (sums ~1e11 in the window-variance cancellation) otherwise
@@ -79,121 +66,17 @@ def grid_starts(
     return y0s, x0s
 
 
-def _pallas_ncc_sums(tiles_nl, wins_nl, s: int, w: int, r: int, interpret: bool):
-    """Fused correlation + window-sum pass, nodes on the lane axis.
-
-    Inputs are node-last: ``tiles_nl`` (s, s, Np) mean-centred tiles,
-    ``wins_nl`` (w, w, Np) windows, Np a multiple of 128. One program
-    instance holds one 128-node slab of both in VMEM and, for each of the
-    (2r+1)^2 offsets, reads the shifted window slice ONCE to produce all
-    three reductions — numerator, window sum, window energy — so every
-    window byte is loaded once per offset from VMEM instead of once per
-    offset from HBM (the grouped-conv lowering's failure mode).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    NB = 128
-    Np = int(tiles_nl.shape[-1])
-    G = Np // NB
-    L = 2 * r + 1
-
-    def kernel(tile_ref, win_ref, num_ref, s1_ref, s2_ref):
-        tile = tile_ref[:]                       # (s, s, NB)
-
-        def u_body(u, _):
-            rows_num = []
-            rows_s1 = []
-            rows_s2 = []
-            for v in range(L):                   # static unroll: lane-cheap
-                sl = win_ref[pl.ds(u, s), v : v + s, :]
-                rows_num.append(jnp.sum(sl * tile, axis=(0, 1)))
-                rows_s1.append(jnp.sum(sl, axis=(0, 1)))
-                rows_s2.append(jnp.sum(sl * sl, axis=(0, 1)))
-            num_ref[pl.ds(u, 1), :, :] = jnp.stack(rows_num)[None]
-            s1_ref[pl.ds(u, 1), :, :] = jnp.stack(rows_s1)[None]
-            s2_ref[pl.ds(u, 1), :, :] = jnp.stack(rows_s2)[None]
-            return 0
-
-        jax.lax.fori_loop(0, L, u_body, 0)
-
-    out = jax.ShapeDtypeStruct((L, L, Np), jnp.float32)
-    return pl.pallas_call(
-        kernel,
-        grid=(G,),
-        in_specs=[
-            pl.BlockSpec((s, s, NB), lambda g: (0, 0, g), memory_space=pltpu.VMEM),
-            pl.BlockSpec((w, w, NB), lambda g: (0, 0, g), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((L, L, NB), lambda g: (0, 0, g), memory_space=pltpu.VMEM)
-            for _ in range(3)
-        ],
-        out_shape=[out, out, out],
-        cost_estimate=pl.CostEstimate(
-            flops=4 * Np * L * L * s * s,
-            bytes_accessed=int(
-                tiles_nl.size * 4 + wins_nl.size * 4 + 3 * L * L * Np * 4
-            ),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(tiles_nl, wins_nl)
-
-
-def _peaks_node_last(corr, r: int, subpixel: bool):
-    """(dy, dx, peak) per node from a node-last (L, L, N) correlation field.
-
-    Vectorised equivalent of argmax + the 3x3 Newton refinement
-    (ops/phasecorr.py::subpixel_taylor, convention="newton"): the 3x3
-    neighbourhood around each node's clipped peak is gathered with
-    take_along_axis, so no per-node dynamic_slice and no (N, L, L)
-    transpose is needed. Border / degenerate-Hessian nodes keep the
-    integer peak, matching the 2D implementation.
-    """
-    L = 2 * r + 1
-    flat = corr.reshape(L * L, -1)
-    k = jnp.argmax(flat, axis=0)
-    i = k // L
-    j = k % L
-    peak = jnp.take_along_axis(flat, k[None, :], axis=0)[0]
-    fi = i.astype(corr.dtype)
-    fj = j.astype(corr.dtype)
-    if not subpixel:
-        return fi - float(r), fj - float(r), peak
-
-    ic = jnp.clip(i, 1, L - 2)
-    jc = jnp.clip(j, 1, L - 2)
-    offsets = [(di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1)]
-    idx = jnp.stack([(ic + di) * L + (jc + dj) for di, dj in offsets])
-    nb = jnp.take_along_axis(flat, idx, axis=0)      # (9, N), row-major 3x3
-    c00, c01, c02, c10, c11, c12, c20, c21, c22 = nb
-
-    gy_ = (c21 - c01) / 2.0
-    dyy = c21 + c01 - 2.0 * c11
-    gx_ = (c12 - c10) / 2.0
-    dxx = c12 + c10 - 2.0 * c11
-    dxy = (c22 - c20 - c02 + c00) / 4.0
-    det = dxx * dyy - dxy * dxy
-    safe_det = jnp.where(det == 0.0, 1.0, det)
-    di_ = -(dxx * gy_ - dxy * gx_) / safe_det
-    dj_ = -(dyy * gx_ - dxy * gy_) / safe_det
-    bad = (i <= 0) | (i >= L - 1) | (j <= 0) | (j >= L - 1) | (det == 0.0)
-    zero = jnp.zeros((), corr.dtype)
-    di_ = jnp.where(bad, zero, di_)
-    dj_ = jnp.where(bad, zero, dj_)
-    return fi + di_ - float(r), fj + dj_ - float(r), peak
+_METHODS = ("conv", "fft")
 
 
 def resolve_track_method(method: str = "auto") -> str:
-    """Resolve ``"auto"`` to the backend-appropriate concrete method."""
-    from ..config import on_tpu
-
+    """Resolve ``"auto"`` to the concrete correlation core: ``"fft"``,
+    the faster core on every supported platform."""
     if method == "auto":
-        method = "pallas" if on_tpu() else "fft"
-    if method not in ("pallas", "conv", "fft"):
+        return "fft"
+    if method not in _METHODS:
         raise ValueError(
-            f"method must be 'auto', 'pallas', 'conv' or 'fft'; got {method!r}"
+            f"method must be 'auto', 'conv' or 'fft'; got {method!r}"
         )
     return method
 
@@ -208,30 +91,20 @@ def dense_track_program(
     the search windows; displacements are img-relative-to-ref in pixels.
     Outputs have shape (len(y0s), len(x0s)).
 
-    ``method``: "pallas" (fused VMEM-resident correlation+sums kernel —
-    fastest on TPU, interpreted elsewhere), "conv" (grouped MXU
-    correlation), "fft" (fastest on CPU), or "auto" (backend-appropriate
-    choice). All produce the same NCC map to float tolerance; see the
-    module docstring for measured rates.
-
-    ``"auto"`` and the Pallas interpret flag are resolved HERE, before the
-    program cache, so the cache key is always the concrete backend — a
-    later platform toggle in the same process gets a fresh program instead
-    of a stale one.
+    ``method``: "fft" (batched small FFTs), "conv" (grouped correlation)
+    or "auto" (= "fft"). Both produce the same NCC map to float tolerance.
+    ``"auto"`` is resolved before the program cache, so one program serves
+    both spellings.
     """
-    from ..config import on_tpu
-
-    method = resolve_track_method(method)
     return _dense_track_program(
-        H, W, tile, search, step, subpixel, method,
-        method == "pallas" and not on_tpu(),
+        H, W, tile, search, step, subpixel, resolve_track_method(method)
     )
 
 
 @lru_cache(maxsize=32)
 def _dense_track_program(
     H: int, W: int, tile: int, search: int, step: int, subpixel: bool,
-    method: str, pallas_interpret: bool,
+    method: str,
 ):
     s, r = int(tile), int(search)
     w = s + 2 * r
@@ -257,25 +130,6 @@ def _dense_track_program(
         dx = j.astype(corr.dtype) + dj - float(r)
         return dy, dx, corr[i, j]
 
-    NB = 128
-    Np = -(-N // NB) * NB
-
-    def _node_last_patches(image, base_y, base_x, side):
-        """All (side, side) patches on the grid, node-last (side, side, N).
-
-        One ``conv_general_dilated_patches`` op — the only XLA formulation
-        measured to build this layout fast on TPU (a fancy gather or a
-        (N, s, s)-then-transpose both cost seconds at 60k nodes; the patch
-        extraction costs ~0.3 s)."""
-        crop = lax.dynamic_slice(
-            image, (base_y, base_x),
-            ((gy - 1) * step + side, (gx - 1) * step + side),
-        )
-        patches = lax.conv_general_dilated_patches(
-            crop[None, None], (side, side), (step, step), "VALID"
-        )  # (1, side*side, gy, gx) — features raveled row-major
-        return patches[0].reshape(side, side, N)
-
     @jax.jit
     def program(img, ref, eps):
         if img.dtype not in (jnp.float32, jnp.float64):
@@ -293,32 +147,6 @@ def _dense_track_program(
             (ref - jnp.nanmean(ref)) / (jnp.nanstd(ref) + eps)
         )
 
-        if method == "pallas":
-            # node-last end to end: no large-array transpose anywhere
-            w_nl = _node_last_patches(img, int(y0s[0]) - r, int(x0s[0]) - r, w)
-            t_nl = _node_last_patches(ref, int(y0s[0]), int(x0s[0]), s)
-            t_nl = t_nl - jnp.mean(t_nl, axis=(0, 1), keepdims=True)
-            energy = jnp.sum(t_nl * t_nl, axis=(0, 1))
-            pad = ((0, 0), (0, 0), (0, Np - N))
-            num_nl, s1_nl, s2_nl = _pallas_ncc_sums(
-                jnp.pad(t_nl, pad, mode="edge").astype(jnp.float32),
-                jnp.pad(w_nl, pad, mode="edge").astype(jnp.float32),
-                s, w, r, pallas_interpret,
-            )
-            num_nl = num_nl[..., :N].astype(img.dtype)
-            s1 = s1_nl[..., :N].astype(img.dtype)
-            s2 = s2_nl[..., :N].astype(img.dtype)
-            var_sum = jnp.maximum(s2 - (s1 * s1) / float(s * s), 0.0)
-            denom = jnp.sqrt(var_sum * energy[None, None, :])
-            safe = denom > eps
-            corr = jnp.where(safe, num_nl / jnp.where(safe, denom, 1.0), 0.0)
-            dy, dx, peak = _peaks_node_last(corr, r, subpixel)
-            return (
-                dy.reshape(gy, gx),
-                dx.reshape(gy, gx),
-                peak.reshape(gy, gx),
-            )
-
         tiles = ref[ty[:, None, :, None], tx[None, :, None, :]]   # (gy, gx, s, s)
         wins = img[wy[:, None, :, None], wx[None, :, None, :]]    # (gy, gx, w, w)
         t = tiles.reshape(N, s, s)
@@ -328,7 +156,7 @@ def _dense_track_program(
 
         if method == "conv":
             # numerator: one grouped correlation, node k's tile against node
-            # k's window (the MXU does all nodes in one pass)
+            # k's window (all nodes in one pass)
             numer = lax.conv_general_dilated(
                 win[None], t[:, None], (1, 1), "VALID",
                 dimension_numbers=dn, feature_group_count=N, precision=hi,
@@ -361,108 +189,6 @@ def _dense_track_program(
             dy.reshape(gy, gx),
             dx.reshape(gy, gx),
             peak.reshape(gy, gx),
-        )
-
-    return program, (y0s, x0s)
-
-
-def dense_track_stack_program(
-    H: int, W: int, tile: int, search: int, step: int, subpixel: bool, F: int
-):
-    """See :func:`_dense_track_stack_program`; the Pallas interpret flag is
-    resolved before the cache boundary (same rationale as
-    :func:`dense_track_program`)."""
-    from ..config import on_tpu
-
-    return _dense_track_stack_program(
-        H, W, tile, search, step, subpixel, F, not on_tpu()
-    )
-
-
-@lru_cache(maxsize=16)
-def _dense_track_stack_program(
-    H: int, W: int, tile: int, search: int, step: int, subpixel: bool, F: int,
-    pallas_interpret: bool,
-):
-    """Batched variant of :func:`dense_track_program` for scans: ONE jitted
-    program tracks ``F`` frames against a shared reference.
-
-    (frames (F, H, W), ref (H, W), eps) -> (dy, dx, peak), each (F, gy, gx).
-
-    In the node-on-lane layout frames simply multiply the lane count: each
-    frame's windows append along the node axis (lane index f*N + n) and the
-    reference tile bank tiles F times, so the Pallas kernel runs unchanged
-    at F*N nodes. This amortises the per-call costs that dominate small
-    grids — the launch floor, the reference z-score/patch pass, and the
-    result pull — across the batch (pallas method only; the per-frame
-    program remains the general path).
-    """
-    s, r = int(tile), int(search)
-    w = s + 2 * r
-    y0s, x0s = grid_starts(H, W, s, r, step)
-    gy, gx = len(y0s), len(x0s)
-    N = gy * gx
-    NB = 128
-    Np = -(-(F * N) // NB) * NB
-
-    def node_last_stack(frames, base_y, base_x, side):
-        crop = lax.dynamic_slice(
-            frames, (0, base_y, base_x),
-            (F, (gy - 1) * step + side, (gx - 1) * step + side),
-        )
-        patches = lax.conv_general_dilated_patches(
-            crop[:, None], (side, side), (step, step), "VALID"
-        )  # (F, side*side, gy, gx)
-        # lane (last) axis stays innermost: this relayout is cheap, unlike
-        # moving the node axis itself (see the module docstring dead ends)
-        arr = patches.reshape(F, side, side, N)
-        return jnp.moveaxis(arr, 0, 2).reshape(side, side, F * N)
-
-    @jax.jit
-    def program(frames, ref, eps):
-        if frames.dtype not in (jnp.float32, jnp.float64):
-            frames = frames.astype(jnp.float32)
-        if ref.dtype != frames.dtype:
-            ref = ref.astype(frames.dtype)
-        # per-frame nan-aware z-score (NCC-invariant, f32 conditioning)
-        m = jnp.nanmean(frames, axis=(1, 2), keepdims=True)
-        sd = jnp.nanstd(frames, axis=(1, 2), keepdims=True)
-        frames = jnp.nan_to_num((frames - m) / (sd + eps))
-        ref = jnp.nan_to_num((ref - jnp.nanmean(ref)) / (jnp.nanstd(ref) + eps))
-
-        w_nl = node_last_stack(frames, int(y0s[0]) - r, int(x0s[0]) - r, w)
-
-        crop_r = lax.dynamic_slice(
-            ref, (int(y0s[0]), int(x0s[0])),
-            ((gy - 1) * step + s, (gx - 1) * step + s),
-        )
-        t_patches = lax.conv_general_dilated_patches(
-            crop_r[None, None], (s, s), (step, step), "VALID"
-        )
-        t_nl = t_patches[0].reshape(s, s, N)
-        t_nl = t_nl - jnp.mean(t_nl, axis=(0, 1), keepdims=True)
-        energy = jnp.sum(t_nl * t_nl, axis=(0, 1))
-        t_all = jnp.concatenate([t_nl] * F, axis=-1)       # lane = f*N + n
-        e_all = jnp.concatenate([energy] * F, axis=-1)
-
-        pad = ((0, 0), (0, 0), (0, Np - F * N))
-        num_nl, s1_nl, s2_nl = _pallas_ncc_sums(
-            jnp.pad(t_all, pad, mode="edge").astype(jnp.float32),
-            jnp.pad(w_nl, pad, mode="edge").astype(jnp.float32),
-            s, w, r, pallas_interpret,
-        )
-        num_nl = num_nl[..., : F * N].astype(frames.dtype)
-        s1 = s1_nl[..., : F * N].astype(frames.dtype)
-        s2 = s2_nl[..., : F * N].astype(frames.dtype)
-        var_sum = jnp.maximum(s2 - (s1 * s1) / float(s * s), 0.0)
-        denom = jnp.sqrt(var_sum * e_all[None, None, :])
-        safe = denom > eps
-        corr = jnp.where(safe, num_nl / jnp.where(safe, denom, 1.0), 0.0)
-        dy, dx, peak = _peaks_node_last(corr, r, subpixel)
-        return (
-            dy.reshape(F, gy, gx),
-            dx.reshape(F, gy, gx),
-            peak.reshape(F, gy, gx),
         )
 
     return program, (y0s, x0s)

@@ -4,10 +4,10 @@
 The STA2 sharpness estimator only consumes the top few eigenvalues of the
 image covariance (reference metrics/sharpness.py:839 takes k=5 of a full
 SVD). A dense ``eigvalsh`` of the (M, M) Gram matrix computes the entire
-spectrum with QR sweeps that map poorly onto the MXU — ~180 ms of the
-Config-A budget at 2048^2. Subspace iteration spends its FLOPs in (M, M) @
-(M, r) matmuls instead (pure MXU work): power-iterate an r = k + p block,
-re-orthonormalise, then Rayleigh-Ritz an (r, r) problem.
+spectrum with serial QR sweeps. Subspace iteration spends its FLOPs in
+(M, M) @ (M, r) matmuls instead: power-iterate an r = k + p block,
+re-orthonormalise, then Rayleigh-Ritz an (r, r) problem. Every matmul
+runs at ``precision="highest"`` (full fp32; TF32 would cost ~3 digits).
 
 Convergence: eigenvalue i's error decays like (lambda_{r+1}/lambda_i)^(2q).
 With the defaults (p=27, q=16) speckle-like covariance spectra agree with
@@ -29,7 +29,7 @@ __all__ = ["topk_eigvalsh_subspace"]
 def topk_eigvalsh_subspace(G, k: int, *, oversample: int = 27, iters: int = 16):
     """Top-``k`` eigenvalues (descending) of a symmetric PSD matrix ``G``.
 
-    Pure MXU-friendly compute: ``iters`` rounds of (M, M) @ (M, r) products
+    Matmul-bound compute: ``iters`` rounds of (M, M) @ (M, r) products
     with tall-skinny QR re-orthonormalisation, then an exact (r, r)
     Rayleigh-Ritz solve. Deterministic (fixed PRNG key) so results are
     reproducible run to run.

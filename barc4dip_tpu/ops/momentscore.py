@@ -8,7 +8,7 @@ Fisher m4/m2^2-3 without bias correction), frac_zero, frac_sat, SNRdB.
 The reference filters non-finite values by boolean indexing — a
 data-dependent shape. Here the same statistics come from masked reductions
 (weight 0 for non-finite entries): identical results, static shapes, jittable
-and vmappable. Two-pass central moments keep float32 accurate on TPU.
+and vmappable. Two-pass central moments keep float32 accurate on the device.
 """
 from __future__ import annotations
 

@@ -20,8 +20,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from . import mxufft
-
 __all__ = ["zscore2d", "phase_corr_surface", "peak_quality", "subpixel_taylor", "argmax2d"]
 
 
@@ -38,25 +36,11 @@ def phase_corr_surface(img_z, tpl_pad, *, eps: float = 1e-9):
     Inputs are expected pre-normalised (z-scored / embedded).
     """
     H, W = img_z.shape[-2], img_z.shape[-1]
-    if (
-        mxufft.mxu_fft_enabled()
-        and mxufft.perm_supported_2d((H, W))
-        and not (jnp.iscomplexobj(img_z) or jnp.iscomplexobj(tpl_pad))
-    ):
-        # magnitude whitening is pointwise, so the permuted-order matmul
-        # DFT applies (ops/mxufft.py); the inverse emits natural order.
-        fire, fiim = mxufft.fftp2(img_z)
-        ftre, ftim = mxufft.fftp2(tpl_pad)
-        pre = fire * ftre + fiim * ftim
-        pim = fiim * ftre - fire * ftim
-        mag = jnp.sqrt(pre * pre + pim * pim) + eps
-        corr = mxufft.ifftp2_real(pre / mag, pim / mag)
-    else:
-        Fi = jnp.fft.rfft2(img_z)
-        Ft = jnp.fft.rfft2(tpl_pad)
-        prod = Fi * jnp.conj(Ft)
-        cps = prod / (jnp.abs(prod) + eps)
-        corr = jnp.fft.irfft2(cps, s=(H, W))
+    Fi = jnp.fft.rfft2(img_z)
+    Ft = jnp.fft.rfft2(tpl_pad)
+    prod = Fi * jnp.conj(Ft)
+    cps = prod / (jnp.abs(prod) + eps)
+    corr = jnp.fft.irfft2(cps, s=(H, W))
     return jnp.abs(jnp.fft.fftshift(corr, axes=(-2, -1)))
 
 

@@ -1,9 +1,8 @@
 # SPDX-License-Identifier: CECILL-2.1
 """Exact order statistics without sorting.
 
-Sorting lowers to an expensive-to-compile kernel on TPU (~20-30s of compile
-time per sort in a program). Percentiles and medians only need a handful of
-order statistics, so we find them by binary search on the *bit pattern*: the
+Percentiles and medians only need a handful of order statistics, so
+instead of sorting we find them by binary search on the *bit pattern*: the
 IEEE-754 total order maps monotonically onto unsigned integers, and 32/64
 counting passes (cheap fused VPU reductions) pin down the exact k-th smallest
 value. Results match ``np.nanpercentile(..., method="linear")`` bit-for-bit

@@ -6,7 +6,7 @@ This natively replaces the reference's skimage
 ``phase_cross_correlation(..., upsample_factor=10)`` backend
 (signal/tracking.py:264-269): a coarse FFT correlation peak refined by an
 upsampled DFT evaluated only in a small neighbourhood — two small
-matrix-multiplies, which is exactly what the MXU wants.
+matrix-multiplies.
 """
 from __future__ import annotations
 
@@ -37,7 +37,10 @@ def upsampled_dft(data, upsampled_region_size: int, upsample_factor: int, axis_o
 
     ky = kernel(ny, axis_offsets[0])
     kx = kernel(nx, axis_offsets[1])
-    return ky @ data @ kx.T
+    # full fp32 products: at the default precision the GPU runs float32
+    # matmuls in TF32 (~3 digits), too coarse for a subpixel peak
+    hi = jax.lax.Precision.HIGHEST
+    return jnp.matmul(jnp.matmul(ky, data, precision=hi), kx.T, precision=hi)
 
 
 @partial(jax.jit, static_argnames=("upsample_factor",))

@@ -2,7 +2,7 @@
 """Device-mesh data parallelism over the frame axis.
 
 The reference's only parallelism is a joblib thread pool over stack frames
-(reference metrics/speckles.py:296-325, SURVEY §2.10). The TPU-native
+(reference metrics/speckles.py:296-325, SURVEY §2.10). The device-native
 equivalent is a 1-D ``jax.sharding.Mesh`` over the frame axis: per-frame
 metric and tracking programs are embarrassingly parallel, so sharding the
 batch axis distributes them across chips with zero collectives on the hot
@@ -34,12 +34,14 @@ def init_distributed(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Initialise multi-host JAX (DCN) before building meshes.
+    """Initialise multi-host JAX before building meshes.
 
-    Thin wrapper over ``jax.distributed.initialize``: on multi-host pods each
-    process calls this first, after which :func:`frame_mesh` spans every chip
-    in the job (frames shard across hosts over DCN, chips over ICI). No-op
-    arguments default to cluster auto-detection (GKE/Cloud TPU metadata).
+    Thin wrapper over ``jax.distributed.initialize``: on a multi-host GPU
+    cluster each process calls this first, after which :func:`frame_mesh`
+    spans every GPU in the job (frames shard across hosts over the network,
+    across the GPUs of one host over NVLink). Where no cluster manager
+    (e.g. SLURM) is detected, pass ``coordinator_address``
+    (``"host:port"``), ``num_processes`` and ``process_id`` explicitly.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

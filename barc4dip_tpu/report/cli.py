@@ -5,7 +5,7 @@ Reads one detector image, optionally flat-/dark-corrects it, evaluates the
 speckle metric groups on device, and prints (or saves) the Markdown logbook.
 Flag names, dests and defaults track the reference console script
 (reference report/cli.py:31-146) so existing beamline scripts keep working;
-everything behind the flags runs through this package's fused TPU programs.
+everything behind the flags runs through this package's fused device programs.
 
 Usage::
 

@@ -4,9 +4,8 @@ executable.
 
 The interactive workflow the reference examples walk through (ex_03 /
 SURVEY §6 Config C) is psd2d + autocorr2d + radial means — four dependent
-kernel launches when composed from the public signal/maths calls. On a
-hosted accelerator every launch pays a round trip, so the composition is
-latency-bound long before it is compute-bound. ``spectral_summary`` runs
+kernel launches when composed from the public signal/maths calls, each
+with its own upload and pull. ``spectral_summary`` runs
 the entire workload as one jitted program from one upload: PSD, peak-
 normalized autocorrelation, and both radial-mean profiles of the
 autocorrelation come back together; the two big maps stay device-resident

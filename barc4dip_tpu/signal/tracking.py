@@ -9,7 +9,7 @@ Parity with reference signal/tracking.py:25-375:
 - ``phase_correlation``: whitened cross-power spectrum of the z-scored frame
   vs the zero-embedded z-scored template.
 
-TPU-native departures:
+Device departures:
 - Both the "opencv" and "skimage" template backends evaluate the *same*
   zero-normalised cross-correlation (mathematically identical maps, see
   ops/ncc.py), computed by one FFT + integral-image device kernel.

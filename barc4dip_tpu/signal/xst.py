@@ -12,8 +12,7 @@ field gives the wavefront.
 The tracking core (ops/densetrack.py) runs every sub-aperture's windowed
 ZNCC in one jitted program — both frames upload once, patches gather
 in-program, thousands of correlations batch through one rfft2 — so this
-path is compute-bound (MXU/FFT) rather than transfer-bound: the natural
-TPU win.
+path is bound by device compute rather than by transfers.
 """
 from __future__ import annotations
 
@@ -108,15 +107,10 @@ def track_displacement_stack(
     eps: float = 1e-9,
     method: str = "auto",
     mesh=None,
-    frame_batch: int = 4,
 ) -> dict:
     """Dense displacement fields for every frame of a (T, H, W) stack.
 
-    On the TPU Pallas path (single device), frames run in batches of
-    ``frame_batch`` through ONE program per batch — the launch floor, the
-    reference prep, and the result pull amortise across the batch (the
-    node-on-lane kernel just sees frame_batch times the nodes). Otherwise
-    each frame is tracked with one compiled program reused across the
+    Each frame is tracked with one compiled program reused across the
     scan, the device running one frame ahead of the host pull. With
     ``mesh``, frames round-robin across the mesh's devices (the reference
     image is placed once per device) and the per-frame programs execute
@@ -138,13 +132,6 @@ def track_displacement_stack(
         raise ValueError(f"ref shape {ref.shape} != frame shape {(H, W)}")
 
     resolved = resolve_track_method(str(method))
-    F = max(1, int(frame_batch))
-    if resolved == "pallas" and mesh is None and F > 1 and T > 1:
-        return _track_stack_batched(
-            stack, ref, T, H, W, int(tile_size), int(search_radius),
-            int(step), bool(subpixel), float(eps), min(F, T),
-        )
-
     program, (y0s, x0s) = dense_track_program(
         H, W, int(tile_size), int(search_radius), int(step), bool(subpixel),
         resolved,
@@ -194,59 +181,6 @@ def track_displacement_stack(
             "search_radius": int(search_radius),
             "subpixel": bool(subpixel),
             "method": resolved,
-            "grid_shape": (len(y0s), len(x0s)),
-            "units": {"dy": "px", "dx": "px", "peak": "1"},
-        },
-    }
-
-
-def _track_stack_batched(
-    stack, ref, T, H, W, s, r, step, subpixel, eps, F
-) -> dict:
-    """Pallas scan path: F frames per program call, one-behind pulls."""
-    from ..ops.densetrack import dense_track_stack_program
-
-    program, (y0s, x0s) = dense_track_stack_program(
-        H, W, s, r, step, subpixel, F
-    )
-    ref_dev = jnp.asarray(np.ascontiguousarray(ref))
-    eps_dev = jnp.asarray(eps, jnp.float32)
-
-    dys, dxs, peaks = [], [], []
-    pending = None  # (device_out, n_valid)
-    for c0 in range(0, T, F):
-        c1 = min(c0 + F, T)
-        chunk = np.asarray(stack[c0:c1])
-        if c1 - c0 < F:  # pad the tail to keep one compiled shape
-            chunk = np.concatenate(
-                [chunk, np.repeat(chunk[-1:], F - (c1 - c0), axis=0)], axis=0
-            )
-        out = program(jnp.asarray(chunk), ref_dev, eps_dev)
-        if pending is not None:
-            arrs, n = pending
-            dy, dx, pk = (np.asarray(a, np.float32)[:n] for a in arrs)
-            dys.append(dy); dxs.append(dx); peaks.append(pk)
-        pending = (out, c1 - c0)
-    arrs, n = pending
-    dy, dx, pk = (np.asarray(a, np.float32)[:n] for a in arrs)
-    dys.append(dy); dxs.append(dx); peaks.append(pk)
-
-    half = (s - 1) / 2.0
-    return {
-        "dy": np.concatenate(dys),
-        "dx": np.concatenate(dxs),
-        "peak": np.concatenate(peaks),
-        "y": np.asarray(y0s, np.float64) + half,
-        "x": np.asarray(x0s, np.float64) + half,
-        "meta": {
-            "kind": "displacement_stack",
-            "stack_shape": (T, H, W),
-            "tile_size": s,
-            "step": step,
-            "search_radius": r,
-            "subpixel": subpixel,
-            "method": "pallas",
-            "frame_batch": F,
             "grid_shape": (len(y0s), len(x0s)),
             "units": {"dy": "px", "dx": "px", "peak": "1"},
         },

@@ -196,7 +196,7 @@ class _LazyArrayBase:
 
 class LazyMap(_LazyArrayBase):
     """A single deferred 2D map backed by a zero-argument fetch thunk
-    (typically: pull the device-resident half map and mirror it)."""
+    (typically: re-derive the map on device and pull it)."""
 
     def __init__(self, shape: tuple, dtype, fetch: Callable[[], np.ndarray]):
         self._shape = tuple(int(s) for s in shape)

@@ -2,7 +2,7 @@
 """Tracing and per-stage timing.
 
 The reference's observability is wall-clock prints (utils/time.py) and
-structured INFO log lines. The TPU equivalents here:
+structured INFO log lines. The device equivalents here:
 
 - :func:`device_trace` — context manager around ``jax.profiler`` producing a
   TensorBoard-loadable trace of XLA execution;

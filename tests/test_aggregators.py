@@ -296,38 +296,6 @@ def test_device_array_input_matches_numpy(field):
     )
 
 
-def test_half_map_transfer_matches_full(field, monkeypatch):
-    """The centro-symmetric half-map path (used on TPU to halve transfers)
-    reconstructs the full autocorr map exactly."""
-    import barc4dip_tpu.metrics.speckles as sp
-    import barc4dip_tpu.metrics.stack_fused as sf
-
-    full = speckle_stats(field, metrics="grain", tiles=False, verbose=False)
-
-    monkeypatch.setattr("barc4dip_tpu.config.on_tpu", lambda: True)
-    sp._speckle_program.cache_clear()
-    half = speckle_stats(field, metrics="grain", tiles=False, verbose=False)
-    sp._speckle_program.cache_clear()
-
-    np.testing.assert_allclose(
-        half["full"]["grain"]["autocorr"], full["full"]["grain"]["autocorr"],
-        rtol=0, atol=1e-12,
-    )
-    assert half["full"]["grain"]["autocorr"].shape == full["full"]["grain"]["autocorr"].shape
-
-    # stack path
-    stack = np.stack([field, field * 1.01])
-    ref_out = speckle_stack_stats(stack, metrics="grain,stats", tiles=False, verbose=False)
-    monkeypatch.setattr("barc4dip_tpu.config.on_tpu", lambda: True)
-    sf._metrics_chunk_program.cache_clear()
-    half_out = speckle_stack_stats(stack, metrics="grain,stats", tiles=False, verbose=False)
-    sf._metrics_chunk_program.cache_clear()
-    np.testing.assert_allclose(
-        half_out["full"]["grain"]["autocorr"], ref_out["full"]["grain"]["autocorr"],
-        rtol=0, atol=1e-12,
-    )
-
-
 def test_windowed_search_matches_full_frame():
     """Opt-in tracking_search_radius reproduces the full-frame search
     exactly while the physical drift stays inside the window — including

@@ -1,8 +1,9 @@
 # SPDX-License-Identifier: CECILL-2.1
-"""Driver-proofing tests for bench.py (round-4 VERDICT item 1).
+"""Driver-proofing tests for bench.py.
 
-BENCH_r03.json was an rc=124 timeout with zero output; the watchdog must
-guarantee a valid JSON line on stdout no matter which stage stalls. The
+A benchmark killed by its time limit must still leave output: the
+watchdog must guarantee a valid JSON line on stdout no matter which stage
+stalls. The
 forced-stall path is exercised for real here via BENCH_SELFTEST_STALL.
 """
 from __future__ import annotations
@@ -24,7 +25,6 @@ def _run_bench(env_extra: dict, timeout: float = 180.0):
     env.pop("XLA_FLAGS", None)
     env.update(
         JAX_PLATFORMS="cpu",
-        BENCH_COMPILE_CACHE="0",
         **env_extra,
     )
     return subprocess.run(

@@ -5,7 +5,8 @@ The multi-host path is the one SURVEY component with no single-process
 test: here two OS processes rendezvous through a localhost coordinator
 (`jax.distributed.initialize`), build the shared frame mesh across both
 processes' CPU devices, and run one jitted cross-process computation.
-This validates the DCN wiring contract end-to-end minus the actual pod:
+This validates the multi-host wiring contract end-to-end minus the
+actual cluster:
 process_count, global device visibility, global-array construction from
 per-process shards, and a cross-process collective reduction.
 
@@ -101,7 +102,9 @@ def test_init_distributed_two_process_mesh(tmp_path):
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
     env["PYTHONPATH"] = f"{REPO}{os.pathsep}" + env.get("PYTHONPATH", "")
-    env.pop("JAX_PLATFORMS", None)
+    # CPU only in the workers: a worker must never open the GPU beside
+    # its parent (each JAX process reserves most of a card's memory)
+    env["JAX_PLATFORMS"] = "cpu"
 
     procs = [
         subprocess.Popen(

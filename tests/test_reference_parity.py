@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: CECILL-2.1
 """Conformance tests against the actual reference package (mounted read-only
 at /root/reference). These are the ground-truth parity checks: the
-TPU-native implementation must reproduce the reference outputs at float64
+device implementation must reproduce the reference outputs at float64
 within 1e-9 relative (far tighter than the 1e-5 driver target).
 
 Skipped automatically when the reference tree is unavailable.

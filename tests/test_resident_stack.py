@@ -82,7 +82,7 @@ def test_stack_programs_match_chunk_programs_with_tiles():
     rng = np.random.default_rng(5)
     stack = rng.normal(size=(6, 96, 96)).astype(np.float32)
     groups = ("amplitude", "stats")
-    args = (groups, "3x3", 65535.0, 1e-12, True, False, False, False)
+    args = (groups, "3x3", 65535.0, 1e-12, True, False)
     chunk_prog = stack_fused._metrics_chunk_program(*args)
     stack_prog = stack_fused._metrics_stack_program(*args, slab=2)
     expected = jax.tree_util.tree_map(
@@ -109,10 +109,10 @@ def test_track_stack_program_matches_chunked(spiral_stack):
     f0 = jnp.asarray(stack[0])
 
     chunk_prog = stack_fused._track_chunk_program(
-        "template", True, H, W, ss, starts_key, None, False
+        "template", True, H, W, ss, starts_key, None
     )
     stack_prog = stack_fused._track_stack_program(
-        "template", True, H, W, ss, starts_key, None, False, slab=2
+        "template", True, H, W, ss, starts_key, None, slab=2
     )
 
     outs = []
